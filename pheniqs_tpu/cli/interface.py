@@ -134,7 +134,7 @@ class Interface:
     def print_help(self, stream=None):
         stream = stream or sys.stderr
         stream.write(
-            "pheniqs-tpu: TPU-native barcode classification\n\n"
+            "pheniqs-tpu: accelerated barcode classification\n\n"
             "Usage: pheniqs-tpu mux [OPTIONS]\n\n"
             "Options:\n"
         )

@@ -173,8 +173,8 @@ MUX_ACTION = {
         {"name": "htslib threads", "handle": ["--htslib-threads"], "type": "integer", "help": "Compression thread pool size"},
         {"name": "buffer capacity", "handle": ["-B", "--buffer"], "type": "integer", "help": "Feed buffer capacity in reads"},
         {"name": "float precision", "handle": ["--precision"], "type": "integer", "help": "Significant digits in emitted JSON numbers"},
-        # TPU-native extensions (not present in the reference)
-        {"name": "fidelity", "handle": ["--fidelity"], "type": "string", "help": "Decode fidelity: strict (f64 host), fast (TPU f32), hybrid (TPU + f64 re-resolve)"},
+        # device-engine extensions (not present in the reference)
+        {"name": "fidelity", "handle": ["--fidelity"], "type": "string", "help": "Decode fidelity: strict (f64 host), fast (device f32), hybrid (device + f64 re-resolve)"},
         {"name": "batch size", "handle": ["--batch-size"], "type": "integer", "help": "Reads per device batch"},
         {"name": "devices", "handle": ["--devices"], "type": "integer", "help": "Limit the number of accelerator devices"},
     ],

@@ -9,7 +9,7 @@ ObservationScratch). They serve three roles:
 
   1. the `--fidelity strict` execution path, producing byte-identical SAM
      tags and reports vs the reference;
-  2. the oracle that kernel unit tests compare the f32 TPU path against;
+  2. the oracle that unit tests compare the f32 device path against;
   3. the resolver for boundary reads the fast path flags as too close to a
      filter threshold to decide in f32.
 

@@ -1,5 +1,5 @@
 """Compiled decoder specifications shared by the strict (NumPy f64) engine
-and the TPU (JAX/Pallas f32) engine.
+and the device (JAX f32) engine.
 
 A DecoderSpec is the executable form of one classifier from the compiled
 instruction document: the tokenization rule, the expected barcode panel with

@@ -1,4 +1,4 @@
-"""The TPU compute path: jittable decode kernels and the sharded decode step.
+"""The device compute path: jittable decode programs and the sharded decode step.
 
 Everything under this package is functional JAX — static shapes, no Python
 control flow on traced values — so the whole decode step compiles to one

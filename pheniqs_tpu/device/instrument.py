@@ -2,7 +2,7 @@
 
 A ``DeviceInstrument`` is the static, jit-friendly form of one compiled
 instruction: per-decoder token plans (fixed-width gathers), barcode panel
-matrices laid out for MXU matmuls, and scalar thresholds. It is built once
+matrices laid out for matrix products, and scalar thresholds. It is built once
 per job from the same ``DecoderSpec`` objects the strict engine uses, so
 the two paths classify from identical compiled state.
 
@@ -22,7 +22,7 @@ which decomposes into read-side features F and panel-side features G with
     F[r, w, 0:4] = onehot4(o) * (tpq[q] - q)      G[b, w, 0:4] = onehot4(e)
     F[r, w, 4]   = strict(o) * (q - UNIFORM)      G[b, w, 4]   = strict(e)
 
-i.e. a (N, 5W) x (5W, B) contraction that runs on the systolic array.
+i.e. one (N, 5W) x (5W, B) matrix product.
 Per-read Hamming/high-quality distances are then computed only against the
 *decoded* barcode with a row gather + elementwise compare, avoiding the
 (N, B, W) mismatch tensor entirely.
@@ -51,18 +51,16 @@ LN_PHRED_BASE = float(-0.1 * np.log(10.0))
 #: instead of materializing the (N, B) matrix (classify._posterior_chunked)
 LARGE_PANEL_B = 1024
 
-#: analytic (default) computes the true-positive quality on the VPU as two
-#: transcendentals; `lut` restores the (N, W) table gather, which profiled
-#: ~16 ms/decoder per 131k-read batch on v5e (tools/profile_step.py) —
-#: dynamic gathers lower poorly on TPU
+#: analytic (default) computes the true-positive quality elementwise
+#: (analytic_tpq); `lut` gathers it from the (128,) f32 table instead
 TPQ_MODE = os.environ.get("PHENIQS_TPQ", "analytic")
 
 
 def analytic_tpq(q: jnp.ndarray) -> jnp.ndarray:
     """f32 true-positive quality -10*log10(1 - 10^(-q/10)) computed
-    elementwise WITHOUT transcendentals. TPU's log1p is only ~3.3e-4
-    relative-accurate (measured; exp is ~4e-6), which inflated the hybrid
-    re-resolution bound enough to flag essentially every read — so:
+    elementwise WITHOUT transcendentals, so its accuracy does not depend on
+    the backend's log1p (whose error would widen the hybrid re-resolution
+    bound):
 
       * 10^(-q/10) for integer q as a product over q's bits of exact f32
         constants 10^(-2^k/10) (<= 3 ulp, measured 2.1e-7)
@@ -157,9 +155,9 @@ class DeviceDecoder:
     panel_strict: jnp.ndarray | None = None  # (B, W) f32 strict(e)
     likelihood_matrix: jnp.ndarray | None = None  # (5W, B) f32 — G above
     #: (16W, B) one-hot of panel codes: match counts (and hence Hamming
-    #: distances to the decoded barcode) become one MXU contraction
-    #: instead of a per-read row gather — exact at DEFAULT matmul
-    #: precision (0/1 operands are bf16-exact, accumulation is f32).
+    #: distances to the decoded barcode) become one matrix product
+    #: instead of a per-read row gather — exact at any matmul precision,
+    #: TF32 included (see classify.pamld_classify_device).
     #: Built only for ambiguity-coded panels; strict panels carry the
     #: 4x-smaller panel_match4 instead.
     panel_match16: jnp.ndarray | None = None
@@ -234,16 +232,22 @@ def _plans_from_rule(spec: DecoderSpec) -> tuple[list[TokenPlan], list[int]]:
 
 
 def _distance_by_gather() -> bool:
-    """Pick the decoded-barcode distance algorithm per backend: dynamic
-    row gathers lower poorly on TPU (+75 ms per 131k batch,
-    tools/profile_step.py), so the TPU program uses the one-hot match
-    contraction — but on CPU XLA that contraction is the single most
-    expensive op in the step (149 ms vs 0.6 ms for the gather at
-    N=131k, B=384, measured), so the CPU program gathers the decoded
-    panel row and compares directly. Both are integer-exact: decisions
-    are identical either way (pinned by the CPU-vs-oracle suites).
-    PHENIQS_DISTANCE_PATH=gather|contraction overrides (tests use it to
-    cover the TPU-shaped path on the CPU backend)."""
+    """Pick the decoded-barcode distance algorithm: gather the decoded
+    panel row and compare (True), or contract a one-hot of the observation
+    against the panel's match matrix and pick the decoded column (False).
+
+    The gather is the default: it wins on both backends the program runs
+    on. On the GPU
+    (H100 80GB HBM3 at a 400 W power limit, PERF.md) the flagship step
+    round trip (bench.py step mode, 131072-read batch, runs alternated)
+    ran 70.2M and 67.8M reads/s with the gather against 64.8M and 56.2M
+    with the contraction, and the full step took 1.60 vs 1.81 ms
+    pipelined (tools/profile_step.py); on the CPU the
+    contraction is the single most expensive op of the step (149 ms vs
+    0.6 ms for the gather at N=131k, B=384). Both are integer-exact, so
+    decisions are identical either way (pinned by the CPU-vs-oracle
+    suites and chip_smoke.py). PHENIQS_DISTANCE_PATH=gather|contraction
+    overrides, so both paths stay testable on either backend."""
     forced = os.environ.get("PHENIQS_DISTANCE_PATH")
     if forced:
         if forced not in ("gather", "contraction"):
@@ -252,7 +256,7 @@ def _distance_by_gather() -> bool:
                 " gather or contraction"
             )
         return forced == "gather"
-    return jax.default_backend() == "cpu"
+    return True
 
 
 def match16_from_codes(codes: np.ndarray) -> jnp.ndarray:
@@ -272,8 +276,7 @@ def match4_from_codes(codes: np.ndarray) -> jnp.ndarray | None:
     strict panel only need the 4-class observed one-hot (code equality
     with a strict expected base implies the observed base is strict), so
     the read-side one-hot tensor shrinks 4x vs match16 — the distance
-    contraction's cost is its HBM traffic, not its FLOPs (round-4
-    profile: 32 ms -> the one-hot build dominated at N=1M)."""
+    contraction's cost is the one-hot's memory traffic, not its FLOPs."""
     if not np.isin(codes, STRICT_CODES).all():
         return None
     b, w = codes.shape
@@ -296,10 +299,10 @@ def _panel_matrices(spec: DecoderSpec):
     match16 = None
     match4 = None
     if b <= LARGE_PANEL_B and not _distance_by_gather():
-        # only the monolithic TPU posterior consumes the match
-        # contraction; the CPU backend and chunked/sharded panels keep
-        # the row gather (a (16W, B) matrix for a 1M-barcode whitelist
-        # would cost ~1 GB of HBM for nothing; classify rebuilds it
+        # only the monolithic posterior on the contraction path consumes
+        # the match matrices; the gather path and chunked/sharded panels
+        # keep the row gather (a (16W, B) matrix for a 1M-barcode
+        # whitelist would cost ~1 GB of device memory; classify rebuilds it
         # lazily if the path is forced to contraction after compile).
         # Strict panels take the 4-wide matrix; only ambiguity-coded
         # panels need the full 16-class equality.

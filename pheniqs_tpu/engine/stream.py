@@ -1,6 +1,6 @@
 """Streamed multiprocess pipeline engine.
 
-The host-side scale-out architecture (the TPU-native answer to the
+The host-side scale-out architecture (the device engine's answer to the
 reference's N decoding threads over shared ring buffers, reference
 transcode.cpp:1491-1500, transcode.h:202-225):
 

@@ -5,7 +5,7 @@ the input feeds, classifies them with the NumPy oracle decoders, assembles
 output reads through the template rule, routes them to per-barcode output
 channels, and accumulates the statistics that feed the JSON report. Every
 numeric decision replicates the reference bit for bit; this engine is both
-the `--fidelity strict` path and the correctness oracle for the TPU path.
+the `--fidelity strict` path and the correctness oracle for the device path.
 
 Structure mirrors the reference hot loop (reference transcode.h:202-225):
   pull -> validate -> filters -> classify (sample, molecular*, cellular*)
@@ -579,7 +579,7 @@ class StrictEngine:
         batches = self.read_batches(batch_size)
         if os.environ.get("PHENIQS_PREFETCH") == "1":
             # overlap ingest with processing; pays off only when the
-            # pipeline is not GIL-bound (e.g. fast engine on real TPU)
+            # pipeline is not GIL-bound (e.g. fast engine on a GPU)
             batches = _prefetch(batches)
         for batch in batches:
             self.process_batch(batch)
@@ -854,7 +854,7 @@ class StrictEngine:
         give every group that can take a columnar route its own pass —
         MIXED-format jobs (e.g. .cram + .sam outputs in one config) no
         longer drop the whole render onto the per-read fallback (the
-        ~6x CRAM-intake cliff, VERDICT r4 item 7).
+        ~6x CRAM-intake cliff).
 
         Returns (plan, fallback): plan = [(mode, feed-id set)] for the
         columnar passes, fallback = feed-id set for feeds that still

@@ -5,7 +5,7 @@ widened to uint8 (a bitmask over {A=1, C=2, G=4, T=8}; ambiguity codes are
 unions of those bits, '=' is 0 and N is 15). This matches the data model the
 reference builds its Phred substitution lookup around (reference iupac.h),
 and every table here is a NumPy array so read batches vectorize directly
-into int8 tensors for the TPU kernels.
+into int8 tensors for the device programs.
 
 Code assignments (standard hts/BAM nibble order):
     0  '='   4 'G'    8 'T'   12 'K' (G|T)

@@ -73,8 +73,8 @@ class TranscodeJob:
     def _warn_cpu_device_mode(self, fidelity: str):
         """The device fidelities exist for accelerators; on a CPU-only
         backend the XLA-compiled step is the SLOWEST engine on this
-        workload class (measured: CPU-XLA hybrid 105-143k reads/s vs
-        strict --threads 4 at 204k, BASELINE.md mode matrix) while
+        workload class (measured on a 4-core CPU host: CPU-XLA hybrid
+        105-143k reads/s vs strict --threads 4 at 204k) while
         `--fidelity strict` gives the same decisions (hybrid's contract)
         faster. Warn loudly so a CPU-only user does not silently get the
         worst engine; PHENIQS_QUIET_CPU_DEVICE=1 silences (test meshes

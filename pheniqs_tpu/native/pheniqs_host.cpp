@@ -1,6 +1,6 @@
 // pheniqs-tpu native host runtime: high-throughput FASTQ ingest.
 //
-// The TPU-native equivalent of the reference's htslib feed layer
+// The host-side equivalent of the reference's htslib feed layer
 // (reference fastq.h:30-456, feed.h:281-456): where the reference runs one
 // pthread per feed filling ring buffers of Segment objects, this library
 // parses (optionally gzip-compressed, via zlib) FASTQ streams directly

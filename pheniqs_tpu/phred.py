@@ -19,7 +19,7 @@ singleton has static storage so q==0 entries are zero; reference
 barcode.h:131-164 iterates over the *expected* length).
 
 The table is materialized once in float64 for the exact (strict) engine and
-exported as float32 for the TPU kernels.
+exported as float32 for the device programs.
 """
 
 from __future__ import annotations

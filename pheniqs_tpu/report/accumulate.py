@@ -1,6 +1,6 @@
 """Per-barcode and per-decoder statistics accumulators.
 
-The TPU-native analog of the reference's thread-local accumulators merged
+The analog of the reference's thread-local accumulators merged
 at collect time (reference selector.h:32-92, selector.cpp:25-247): counters
 live in NumPy arrays indexed by barcode (row 0 = unclassified), batch
 updates use order-preserving `np.add.at` so double sums replicate the

@@ -60,7 +60,7 @@ _HELP = {
     "htslib threads": "IO thread count",
     "buffer capacity": "Feed buffer capacity",
     "float precision": "Floating point precision in reports",
-    "fidelity": "Numeric fidelity: strict (f64 host) or fast (TPU f32)",
+    "fidelity": "Numeric fidelity: strict (f64 host) or fast (device f32)",
     "batch size": "Reads per device batch",
     "devices": "Device count override",
 }

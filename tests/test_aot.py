@@ -1,11 +1,11 @@
-"""Stable-key AOT program store (device/aot.py).
+"""Stable-key AOT program store (device/aot.py) and compile-cache placement.
 
-The operational hazard it mitigates: the XLA persistent compile cache
-keys on HLO source-line metadata, so unrelated source edits re-pay the
-cold remote compile (BASELINE.md). These tests pin the semantic-key
-properties (stable across re-traces, sensitive to computation/constant
-changes) and the artifact round trip (second build loads from disk and
-computes identical results).
+The XLA persistent compile cache keys on HLO source-line metadata, so
+unrelated source edits re-pay the cold compile. These tests pin the
+semantic-key properties (stable across re-traces, sensitive to
+computation/constant changes), the artifact round trip (second build
+loads from disk and computes identical results), and where both caches
+live (JAX_COMPILATION_CACHE_DIR, else the checkout's .jax_cache).
 """
 
 import os
@@ -92,10 +92,9 @@ def test_cpu_backend_store_off_by_default(monkeypatch, tmp_path):
     """On the CPU backend with no explicit PHENIQS_AOT, aot_jit must not
     export or load artifacts: loading an XLA:CPU AOT artifact prints the
     cpu_aot_loader machine-feature SIGILL warning even same-host (baked
-    LLVM tuning attrs vs raw cpuinfo), so the driver's multichip dryrun
-    tail must stay warning-free (VERDICT r4 item 2)."""
+    LLVM tuning attrs vs raw cpuinfo)."""
     monkeypatch.delenv("PHENIQS_AOT", raising=False)
-    monkeypatch.setenv("PHENIQS_COMPILE_CACHE", str(tmp_path))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
     assert jax.default_backend() == "cpu"
     x = {"blob": jnp.ones((5, 3), jnp.uint8)}
     step = aot_jit(_make_fn(1.0), SPECS, label="t")
@@ -189,53 +188,75 @@ def test_cpu_fingerprint_carries_model_identity():
         assert "=" in model or flags
 
 
-def test_compile_cache_dir_host_scoped_on_cpu(monkeypatch, tmp_path):
-    """The persistent XLA cache stores serialized CPU executables; a
-    cache dir shared between hosts must not hand one host the other's
-    executable — the CPU cache lives under a host-fingerprint subdir."""
-    import hashlib
+@pytest.fixture
+def cache_config():
+    """Restore JAX's compile-cache settings after a test changes them."""
+    keys = (
+        "jax_compilation_cache_dir",
+        "jax_persistent_cache_min_compile_time_secs",
+    )
+    previous = {key: getattr(jax.config, key) for key in keys}
+    jax.config.update("jax_compilation_cache_dir", None)
+    yield
+    for key, value in previous.items():
+        jax.config.update(key, value)
 
-    from pheniqs_tpu.device.aot import cpu_fingerprint
+
+@pytest.mark.parametrize("backend", ["cpu", "gpu"])
+def test_compile_cache_env_set_means_code_sets_nothing(
+    backend, cache_config, monkeypatch, tmp_path
+):
+    """Where JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself: the
+    program sets no cache directory in code, on any backend."""
     from pheniqs_tpu.engine.device import enable_compilation_cache
 
-    monkeypatch.setenv("PHENIQS_COMPILE_CACHE", str(tmp_path))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
     enable_compilation_cache()
-    assert jax.default_backend() == "cpu"  # conftest forces the CPU mesh
-    configured = jax.config.jax_compilation_cache_dir
-    scope = hashlib.sha256(cpu_fingerprint().encode()).hexdigest()[:12]
-    assert configured == str(tmp_path / f"host-{scope}")
+    assert jax.config.jax_compilation_cache_dir is None
 
 
-def test_compile_cache_off_by_default_on_cpu(monkeypatch):
-    """The persistent XLA cache is for the multi-minute remote TPU
-    compile; on the CPU backend even a same-host cache HIT prints the
-    spurious cpu_aot_loader feature warning (VERDICT r4 item 2 — the
-    driver's dryrun tail must stay clean), and CPU compiles take
-    seconds — so with no explicit PHENIQS_COMPILE_CACHE the cache must
-    stay unconfigured on CPU."""
+def test_compile_cache_unset_on_gpu_uses_checkout_path(
+    cache_config, monkeypatch
+):
+    """Unset on the GPU: one fixed path inside the checkout, which
+    .gitignore lists (a cache whose path moves never hits)."""
+    from pheniqs_tpu.device.aot import CHECKOUT_CACHE
     from pheniqs_tpu.engine.device import enable_compilation_cache
 
-    monkeypatch.delenv("PHENIQS_COMPILE_CACHE", raising=False)
-    previous = jax.config.jax_compilation_cache_dir
-    try:
-        jax.config.update("jax_compilation_cache_dir", None)
-        enable_compilation_cache()
-        assert jax.config.jax_compilation_cache_dir is None
-    finally:
-        jax.config.update("jax_compilation_cache_dir", previous)
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    enable_compilation_cache()
+    assert jax.config.jax_compilation_cache_dir == CHECKOUT_CACHE
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert CHECKOUT_CACHE == os.path.join(repo, ".jax_cache")
+    with open(os.path.join(repo, ".gitignore")) as handle:
+        assert ".jax_cache/" in handle.read().split()
 
 
-def test_compile_cache_empty_string_disables(monkeypatch):
-    """PHENIQS_COMPILE_CACHE= (the blank-a-var shell idiom) and =0 both
-    disable the cache on every backend."""
+def test_compile_cache_off_by_default_on_cpu(cache_config, monkeypatch):
+    """The CPU backend is the test backend: even a same-host cache HIT
+    prints the spurious cpu_aot_loader feature warning and CPU compiles
+    take seconds, so with the variable unset the cache stays off."""
     from pheniqs_tpu.engine.device import enable_compilation_cache
 
-    previous = jax.config.jax_compilation_cache_dir
-    try:
-        for value in ("", "0"):
-            jax.config.update("jax_compilation_cache_dir", None)
-            monkeypatch.setenv("PHENIQS_COMPILE_CACHE", value)
-            enable_compilation_cache()
-            assert jax.config.jax_compilation_cache_dir is None, value
-    finally:
-        jax.config.update("jax_compilation_cache_dir", previous)
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    enable_compilation_cache()
+    assert jax.config.jax_compilation_cache_dir is None
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_aot_store_lives_under_the_cache_root(env_set, monkeypatch, tmp_path):
+    """The AOT store sits in ``aot`` under the same root as the XLA cache;
+    PHENIQS_AOT=dir|0 overrides."""
+    from pheniqs_tpu.device.aot import CHECKOUT_CACHE, aot_cache_dir
+
+    monkeypatch.delenv("PHENIQS_AOT", raising=False)
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert aot_cache_dir() == str(tmp_path / "aot")
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        assert aot_cache_dir() == os.path.join(CHECKOUT_CACHE, "aot")
+    monkeypatch.setenv("PHENIQS_AOT", "0")
+    assert aot_cache_dir() is None

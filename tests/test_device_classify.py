@@ -1,6 +1,6 @@
 """Device (JAX f32) decode path vs the float64 NumPy oracle.
 
-Verifies that the MXU matmul reformulation of the PAMLD likelihood and the
+Verifies that the matrix-product reformulation of the PAMLD likelihood and the
 device MDD decoder reproduce the oracle's classification decisions, and
 that the shard_map'd multi-chip step (8 virtual CPU devices) produces the
 same outputs and psum-merged counters as the single-device step.
@@ -348,10 +348,10 @@ def test_high_quality_distance_filter_matches_oracle():
 
 def test_distance_paths_identical(monkeypatch):
     """The decoded-barcode distance has two integer-exact algorithms —
-    the TPU-shaped one-hot match contraction and the CPU row-gather
-    (classify.py _distance_by_gather) — selected by backend at trace
-    time. Both must produce identical distances and hq-filter decisions
-    (the CPU backend otherwise never covers the contraction path)."""
+    the one-hot match contraction and the row gather
+    (instrument._distance_by_gather) — selected at trace time. Both must
+    produce identical distances and hq-filter decisions (the default
+    backends otherwise never cover the contraction path)."""
     rng = np.random.default_rng(61)
     panel = random_panel(rng, 12, 10)
     ontology = make_pamld_ontology(panel, noise=0.02, confidence=0.9)
@@ -381,11 +381,44 @@ def test_distance_paths_identical(monkeypatch):
         )
 
 
+@pytest.mark.parametrize(
+    "backend, forced, expected",
+    [
+        ("gpu", None, True),  # measured: the gather wins on the H100
+        ("cpu", None, True),
+        ("gpu", "contraction", False),
+        ("cpu", "contraction", False),
+        ("gpu", "gather", True),
+    ],
+)
+def test_distance_path_choice(monkeypatch, backend, forced, expected):
+    """The default distance algorithm is the one measured faster on each
+    backend (instrument._distance_by_gather cites the numbers);
+    PHENIQS_DISTANCE_PATH overrides it on any backend."""
+    from pheniqs_tpu.device.instrument import _distance_by_gather
+
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    if forced is None:
+        monkeypatch.delenv("PHENIQS_DISTANCE_PATH", raising=False)
+    else:
+        monkeypatch.setenv("PHENIQS_DISTANCE_PATH", forced)
+    assert _distance_by_gather() is expected
+
+
+def test_distance_path_rejects_unknown(monkeypatch):
+    from pheniqs_tpu.device.instrument import _distance_by_gather
+    from pheniqs_tpu.errors import ConfigurationError
+
+    monkeypatch.setenv("PHENIQS_DISTANCE_PATH", "scatter")
+    with pytest.raises(ConfigurationError):
+        _distance_by_gather()
+
+
 def test_100k_barcode_panel_smoke():
     """The SURVEY-scale regime: a 100k-barcode 16nt panel classifies
     through the chunked online-logsumexp path and matches the f64 oracle's
     decisions (the reference's serial scan would visit all 100k barcodes
-    per read; here it is 98 scanned MXU chunks)."""
+    per read; here it is 98 scanned chunks)."""
     rng = np.random.default_rng(99)
     panel = random_panel(rng, 100000, 16)
     ontology = make_pamld_ontology(panel)
@@ -858,9 +891,10 @@ def test_static_window_token_path_matches_general_gather():
 def test_analytic_tpq_epsilon_is_tiny():
     """The transcendental-free TPQ must sit within ~1 ulp-scale of the f64
     table on EVERY backend — a regression here silently degrades hybrid
-    mode to strict-engine throughput by flagging every read (the TPU
-    log1p incident, BASELINE.md). The formulation is pure mul/add/select,
-    so the bound should hold bit-identically everywhere."""
+    mode to strict-engine throughput by flagging every read (a backend
+    log1p once measured 3.3e-4 relative did exactly that). The
+    formulation is pure mul/add/select, so the bound should hold
+    bit-identically everywhere."""
     from pheniqs_tpu.device.instrument import analytic_tpq_epsilon
 
     assert analytic_tpq_epsilon() < 2e-6
